@@ -5,10 +5,10 @@
 // asset pipeline — its OBJ loader (reference Mesh.cpp:6-37, line-by-line
 // sscanf) and its stb_image HDR decode (RefractionDemo.cpp:108-140,
 // stbi_loadf) — reimplemented from scratch with the exact semantics the
-// Python definitions in refraction_tpu/io/{objmesh,hdr}.py specify; the two
+// Python definitions in refraction/io/{objmesh,hdr}.py specify; the two
 // implementations are cross-checked in tests/test_native.py.
 //
-// Exposed via a C ABI consumed with ctypes (refraction_tpu/io/native.py):
+// Exposed via a C ABI consumed with ctypes (refraction/io/native.py):
 //   rrt_parse_obj(path, *n_tris) -> float[T][24]  (9 pos, 9 norm, 6 uv)
 //   rrt_load_hdr(path, *h, *w)   -> float[H][W][3]
 //   rrt_free(ptr)

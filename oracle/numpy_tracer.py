@@ -2,8 +2,9 @@
 
 A direct transcription of the reference's recursive GPU ray program
 (SURVEY.md 3.3; RayTracing.hlsl RayGen:42 / ClosestHit:79 / Miss:127) using
-real recursion over batched rays, with none of the TPU restructuring. The
-wavefront integrator and the Pallas kernels are validated against this by
+real recursion over batched rays, with none of the wavefront
+restructuring. The wavefront integrator and the intersection kernel are
+validated against this by
 image diff (tests/test_golden.py).
 
 Semantics per ray (payload {color, mask=1, outside, count}):
@@ -32,17 +33,17 @@ from __future__ import annotations
 
 import numpy as np
 
-from refraction_tpu.camera import CameraFrame, generate_rays, orbit_camera
-from refraction_tpu.config import RenderConfig
-from refraction_tpu.ops.intersect import closest_hit_chunked
-from refraction_tpu.ops.shade import (
+from refraction.camera import CameraFrame, generate_rays, orbit_camera
+from refraction.config import RenderConfig
+from refraction.ops.intersect import closest_hit_chunked
+from refraction.ops.shade import (
     envmap_color,
     fresnel_r,
     normalize,
     reflect_dir,
     refract_dir,
 )
-from refraction_tpu.scene import Scene
+from refraction.scene import Scene
 
 
 def trace_batch(

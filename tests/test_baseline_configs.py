@@ -9,9 +9,9 @@ import pytest
 
 from conftest import rmse
 from oracle.numpy_tracer import render_oracle
-from refraction_tpu.config import RenderConfig, baseline_config
-from refraction_tpu.render import render_frame
-from refraction_tpu.scene import load_scene
+from refraction.config import RenderConfig, baseline_config
+from refraction.render import render_frame
+from refraction.scene import load_scene
 
 REF = "/root/reference"
 
@@ -38,7 +38,7 @@ def test_baseline_config_golden(n):
 def test_baseline_config5_golden():
     """ott.obj with 4x supersampling (the heaviest config; oracle does
     4 full brute-force renders at 12,877 tris)."""
-    from refraction_tpu.render import sample_offsets
+    from refraction.render import sample_offsets
 
     cfg = _small(baseline_config(5), w=64, h=36).replace(spp=4)
     scene, meta = load_scene(cfg)

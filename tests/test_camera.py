@@ -3,14 +3,14 @@ of RefractionDemo.cpp:559-565 and RayTracing.hlsl:27-40."""
 
 import numpy as np
 
-from refraction_tpu.camera import (
+from refraction.camera import (
     generate_rays,
     look_at_lh,
     orbit_camera,
     perspective_fov_lh,
     translation,
 )
-from refraction_tpu.config import RenderConfig
+from refraction.config import RenderConfig
 
 
 def test_perspective_matrix_values():

@@ -28,10 +28,10 @@ import zlib
 import numpy as np
 import pytest
 
-from refraction_tpu.io import native
-from refraction_tpu.io.hdr import decode_hdr_bytes, float_to_rgbe, write_hdr
-from refraction_tpu.io.objmesh import parse_obj
-from refraction_tpu.io.png import decode_png_bytes
+from refraction.io import native
+from refraction.io.hdr import decode_hdr_bytes, float_to_rgbe, write_hdr
+from refraction.io.objmesh import parse_obj
+from refraction.io.png import decode_png_bytes
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

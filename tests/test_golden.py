@@ -10,7 +10,7 @@ import pytest
 
 from conftest import rmse
 from oracle.numpy_tracer import render_oracle
-from refraction_tpu.render import render_frame, rays_per_frame, sample_offsets
+from refraction.render import render_frame, rays_per_frame, sample_offsets
 
 # Compile-heavy integration tier: excluded by `-m "not slow"` (fast tier).
 pytestmark = pytest.mark.slow
@@ -59,7 +59,7 @@ def test_supersampling_accumulation(cube_scene, small_cfg):
 
 
 def test_rays_per_frame_bound():
-    from refraction_tpu.config import RenderConfig
+    from refraction.config import RenderConfig
 
     cfg = RenderConfig(width=10, height=10)
     # widths 1,2,4,4,4,4 -> 19 rays/pixel upper bound (SURVEY.md 3.3)

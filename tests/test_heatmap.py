@@ -5,14 +5,15 @@ entering each trace round per pixel (lane i of every N*2^k-wide pool
 belongs to pixel i % N); render.render_heatmap wraps it per frame.
 """
 
+import os
 import subprocess
 import sys
 
 import numpy as np
 import pytest
 
-from refraction_tpu.camera import orbit_camera
-from refraction_tpu.render import heatmap_to_rgb, render_heatmap
+from refraction.camera import orbit_camera
+from refraction.render import heatmap_to_rgb, render_heatmap
 
 pytestmark = pytest.mark.slow
 
@@ -27,16 +28,16 @@ def test_heatmap_semantics(sphere_scene, small_cfg):
     assert counts.min() == 1
     assert counts.max() > 2
     # Per-pixel counts must sum to the frame's honest live-ray total.
-    from refraction_tpu.camera import generate_rays
-    from refraction_tpu.integrator import render_pixels
-    from refraction_tpu.ops.backends import get_backend
+    from refraction.camera import generate_rays
+    from refraction.integrator import render_pixels
+    from refraction.ops.backends import get_backend
     import jax.numpy as jnp
 
-    backend = get_backend("xla", cfg.cluster_size)
+    backend = get_backend("xla")
     o, d = generate_rays(orbit_camera(0.3, cfg), cfg.width, cfg.height,
                          xp=jnp)
     _, st = render_pixels(scene, o, d, cfg, backend.intersect,
-                          backend.env_contribution, collect_stats=True)
+                          collect_stats=True)
     assert counts.sum() == int(st["rays_traced"])
 
 
@@ -50,15 +51,17 @@ def test_heatmap_rgb_ramp():
     assert rgb[1, 0].sum() > rgb[0, 1].sum()
 
 
-def test_heatmap_cli(tmp_path):
+def test_heatmap_cli(tmp_path, asset_dir):
     out = tmp_path / "heat.png"
     r = subprocess.run(
-        [sys.executable, "-m", "refraction_tpu.run",
-         "--scene", "cube.obj", "--width", "48", "--height", "32",
+        [sys.executable, "-m", "refraction.run",
+         "--scene", os.path.join(asset_dir, "cube.obj"),
+         "--envmap", os.path.join(asset_dir, "envmap.png"),
+         "--width", "48", "--height", "32",
          "--backend", "xla", "--heatmap", str(out)],
         capture_output=True, text=True, timeout=600,
-        env={"JAX_PLATFORMS": "cpu", "PATH": "/usr/bin:/bin",
-             "HOME": "/root"},
+        env=dict(os.environ, JAX_PLATFORMS="cpu"),
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     )
     assert r.returncode == 0, r.stderr[-2000:]
     assert out.exists()

@@ -8,7 +8,7 @@ Morton) is asserted on random point sets.
 
 import numpy as np
 
-from refraction_tpu.bvh.morton import _hilbert_keys, hilbert_order, morton_order
+from refraction.bvh.morton import _hilbert_keys, hilbert_order, morton_order
 
 
 def _scalar_hilbert_key(x: int, y: int, z: int, b: int = 10) -> int:
@@ -96,7 +96,7 @@ def _window_sa(pos, order, leaf):
 
 
 def test_median_split_is_permutation_all_sizes():
-    from refraction_tpu.bvh.morton import median_split_order
+    from refraction.bvh.morton import median_split_order
     rng = np.random.default_rng(3)
     for t in (0, 1, 7, 8, 255, 256, 257, 1000):
         tri = rng.uniform(-2, 2, (t, 3, 3)).astype(np.float32)
@@ -109,7 +109,7 @@ def test_median_split_windows_are_disjoint_splits():
     # centroid AABB must be tighter (never looser) than the same-index
     # windows of a plain Hilbert order, at every level, on a shape with
     # real structure (two separated blobs).
-    from refraction_tpu.bvh.morton import median_split_order
+    from refraction.bvh.morton import median_split_order
     rng = np.random.default_rng(4)
     a = rng.normal(0.0, 0.3, (600, 3))
     b = rng.normal(4.0, 0.3, (424, 3))
@@ -126,7 +126,7 @@ def test_median_split_levels_nest():
     # A cascade stage only reorders WITHIN the parent windows: the set of
     # triangles in each super window must be identical with and without
     # the finer stages.
-    from refraction_tpu.bvh.morton import median_split_order
+    from refraction.bvh.morton import median_split_order
     rng = np.random.default_rng(5)
     tri = rng.uniform(-1, 1, (2048, 3, 3)).astype(np.float32)
     coarse = median_split_order(tri, (512,))

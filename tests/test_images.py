@@ -7,13 +7,13 @@ import zlib
 import numpy as np
 import pytest
 
-from refraction_tpu.io.hdr import (
+from refraction.io.hdr import (
     decode_hdr_bytes,
     float_to_rgbe,
     rgbe_to_float,
     write_hdr,
 )
-from refraction_tpu.io.png import (
+from refraction.io.png import (
     decode_png_bytes,
     load_png,
     png_to_float_rgb,

@@ -6,17 +6,18 @@ inverse-transpose under non-uniform scale, and DXR mask semantics hold
 under the reference's always-0xff ray mask."""
 
 import json
+import os
 
 import numpy as np
 import pytest
 
 from conftest import rmse
-from refraction_tpu.camera import orbit_camera
-from refraction_tpu.config import RenderConfig
-from refraction_tpu.io.primitives import (
+from refraction.camera import orbit_camera
+from refraction.config import RenderConfig
+from refraction.io.primitives import (
     make_cube, make_gradient_envmap, make_icosphere)
-from refraction_tpu.render import make_renderer
-from refraction_tpu.scene import (
+from refraction.render import make_renderer
+from refraction.scene import (
     Instance, build_instanced_scene, build_scene, instance_transform,
     load_instanced, merge_meshes, _transform_mesh)
 
@@ -101,10 +102,10 @@ def test_per_ray_inclusion_mask():
     excludes instance B must render exactly as if B was never built."""
     import jax.numpy as jnp
 
-    from refraction_tpu.camera import generate_rays
-    from refraction_tpu.integrator import render_pixels
-    from refraction_tpu.ops.backends import (
-        xla_env_contribution, xla_intersect)
+    from refraction.camera import generate_rays
+    from refraction.integrator import render_pixels
+    from refraction.ops.backends import xla_intersect
+    from refraction.ops.shade import envmap_color
 
     mesh = make_cube(1.0)
     env = make_gradient_envmap()
@@ -128,7 +129,7 @@ def test_per_ray_inclusion_mask():
         if mask is not None and np.ndim(mask) == 0:
             mask = np.full((n,), mask, np.int32)
         return np.asarray(render_pixels(
-            scene, o, d, cfg, xla_intersect, xla_env_contribution,
+            scene, o, d, cfg, xla_intersect,
             ray_mask=None if mask is None else jnp.asarray(mask)))
 
     full = rp(both, None)
@@ -143,8 +144,7 @@ def test_per_ray_inclusion_mask():
                                atol=1e-6, rtol=0)
     # A mask matching no instance: the pure envmap image (all rays miss
     # at the primary round with weight 1).
-    env_img = np.asarray(xla_env_contribution(
-        both, d, jnp.ones((n,), jnp.float32)))
+    env_img = np.asarray(envmap_color(d, both.envmap, jnp))
     np.testing.assert_allclose(rp(both, 4), env_img, atol=1e-6, rtol=0)
     # Heterogeneous per-ray masks: left half sees A only, right half B
     # only — each half must match its homogeneous render exactly.
@@ -164,7 +164,7 @@ def test_singular_transform_rejected():
         _transform_mesh(make_cube(1.0), m)
 
 
-def test_load_instanced_spec(tmp_path):
+def test_load_instanced_spec(tmp_path, asset_dir):
     """CLI spec loader: obj paths resolve against the asset dir, the
     convenience transform fields compose, and the result renders."""
     spec = [
@@ -174,7 +174,9 @@ def test_load_instanced_spec(tmp_path):
     path = tmp_path / "spec.json"
     path.write_text(json.dumps(spec))
     cfg = RenderConfig(width=48, height=32, backend="xla",
-                       max_refract_depth=2)
+                       max_refract_depth=2,
+                       scene_path=os.path.join(asset_dir, "shell.obj"),
+                       envmap_path=os.path.join(asset_dir, "envmap.png"))
     scene, meta = load_instanced(str(path), cfg)
     assert meta.num_real_tris == 24  # two cubes
     img = _render(scene, cfg)

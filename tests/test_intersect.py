@@ -3,8 +3,8 @@ facing/culling semantics and primitive winding checks."""
 
 import numpy as np
 
-from refraction_tpu.io.primitives import make_cube, make_icosphere
-from refraction_tpu.ops.intersect import intersect_brute
+from refraction.io.primitives import make_cube, make_icosphere
+from refraction.ops.intersect import intersect_brute
 
 
 def _scalar_hit(o, d, a, b, c, tmin, tmax, want_front):

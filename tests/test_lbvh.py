@@ -7,8 +7,8 @@ import numpy as np
 import pytest
 
 from conftest import rmse
-from refraction_tpu.bvh.lbvh import build_lbvh, lbvh_from_scene, lbvh_intersect
-from refraction_tpu.ops.backends import xla_intersect
+from refraction.bvh.lbvh import build_lbvh, lbvh_from_scene, lbvh_intersect
+from refraction.ops.backends import xla_intersect
 
 
 def _rays(n, seed, spread=3.0):
@@ -60,8 +60,8 @@ def test_lbvh_tree_structure(sphere_scene):
 
 def test_lbvh_backend_renders(sphere_scene, small_cfg):
     """Full render through the LBVH backend matches the XLA brute force."""
-    from refraction_tpu.bvh.lbvh import make_lbvh_backend
-    from refraction_tpu.render import render_frame
+    from refraction.bvh.lbvh import make_lbvh_backend
+    from refraction.render import render_frame
 
     scene, _ = sphere_scene
     cfg = small_cfg.replace(width=32, height=16, backend="xla")

@@ -8,12 +8,11 @@ import subprocess
 import numpy as np
 import pytest
 
-from refraction_tpu.io import native
-from refraction_tpu.io.hdr import load_hdr, write_hdr
-from refraction_tpu.io.objmesh import parse_obj
+from refraction.io import native
+from refraction.io.hdr import load_hdr, write_hdr
+from refraction.io.objmesh import parse_obj
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REF = "/root/reference"
 
 
 @pytest.fixture(scope="module")
@@ -65,11 +64,10 @@ def test_obj_matches_python(native_lib, tmp_path):
     np.testing.assert_array_equal(uv, py.uvs)
 
 
-@pytest.mark.skipif(not os.path.isdir(REF), reason="reference assets not mounted")
 @pytest.mark.parametrize("name", ["cube.obj", "sphere.obj", "monkey.obj",
                                   "shell.obj", "ott.obj"])
-def test_obj_reference_assets(native_lib, name):
-    p = os.path.join(REF, name)
+def test_obj_reference_assets(native_lib, asset_dir, name):
+    p = os.path.join(asset_dir, name)
     py = parse_obj(p, allow_native=False)
     pos, norm, uv = native_lib.parse_obj(p)
     assert pos.shape[0] == py.num_tris
@@ -147,7 +145,7 @@ def _png_bytes(w, h, depth, color, scanlines, plte=None, trns=None):
 
 
 def _assert_native_matches_python(native_lib, tmp_path, blob, name):
-    from refraction_tpu.io.png import decode_png_bytes
+    from refraction.io.png import decode_png_bytes
 
     p = tmp_path / name
     p.write_bytes(blob)
@@ -158,11 +156,11 @@ def _assert_native_matches_python(native_lib, tmp_path, blob, name):
     np.testing.assert_array_equal(n, ref, err_msg=name)
 
 
-def test_png_reference_asset(native_lib):
-    from refraction_tpu.io.png import load_png
+def test_png_reference_asset(native_lib, asset_dir):
+    from refraction.io.png import load_png
 
-    n = native_lib.load_png(os.path.join(REF, "envmap.png"))
-    ref = load_png(os.path.join(REF, "envmap.png"), allow_native=False)
+    n = native_lib.load_png(os.path.join(asset_dir, "envmap.png"))
+    ref = load_png(os.path.join(asset_dir, "envmap.png"), allow_native=False)
     assert n is not None and n.dtype == ref.dtype
     np.testing.assert_array_equal(n, ref)
 
@@ -208,7 +206,7 @@ def test_png_palette(native_lib, tmp_path, with_trns):
 
 def test_png_roundtrip_writer(native_lib, tmp_path):
     # The framework's own PNG writer output must decode natively.
-    from refraction_tpu.io.png import write_png
+    from refraction.io.png import write_png
 
     rng = np.random.default_rng(14)
     img = rng.integers(0, 256, (33, 47, 3), dtype=np.uint8)
@@ -222,7 +220,7 @@ def test_png_roundtrip_writer(native_lib, tmp_path):
 def test_png_subbyte_falls_back(native_lib, tmp_path):
     # 4-bit grayscale is outside the native subset: native returns None,
     # the Python decoder handles it (io/png.py sub-byte unpack).
-    from refraction_tpu.io.png import load_png
+    from refraction.io.png import load_png
 
     w, h = 6, 3
     rng = np.random.default_rng(15)
@@ -238,7 +236,7 @@ def test_png_subbyte_falls_back(native_lib, tmp_path):
 
 
 def test_png_corrupt_rejected_everywhere(native_lib, tmp_path):
-    from refraction_tpu.io.png import decode_png_bytes
+    from refraction.io.png import decode_png_bytes
 
     rng = np.random.default_rng(16)
     rows = [bytes([0]) + rng.integers(0, 256, 9, dtype=np.uint8).tobytes()]

@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from refraction_tpu.io.objmesh import parse_obj, parse_obj_text
+from refraction.io.objmesh import parse_obj, parse_obj_text
 
 REF_DIR = "/root/reference"
 

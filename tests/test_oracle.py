@@ -3,9 +3,9 @@
 import numpy as np
 
 from oracle.numpy_tracer import render_oracle, trace_batch
-from refraction_tpu.camera import generate_rays, orbit_camera
-from refraction_tpu.config import RenderConfig
-from refraction_tpu.ops.shade import envmap_color
+from refraction.camera import generate_rays, orbit_camera
+from refraction.config import RenderConfig
+from refraction.ops.shade import envmap_color
 
 
 def test_miss_pixels_equal_envmap(cube_scene, small_cfg):

@@ -10,7 +10,7 @@ in review: spp=2 put both samples at y=0.25 — a 0.25px vertical shift).
 import numpy as np
 import pytest
 
-from refraction_tpu.render import sample_offsets
+from refraction.render import sample_offsets
 
 
 @pytest.mark.parametrize("spp", [1, 2, 3, 4, 5, 6, 7, 8, 9, 16])

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from refraction_tpu.io.primitives import make_gradient_envmap
-from refraction_tpu.ops.shade import (
+from refraction.io.primitives import make_gradient_envmap
+from refraction.ops.shade import (
     envmap_color,
     fresnel_r,
     normalize,

@@ -2,9 +2,9 @@
 
 The tile shape is a pure speed knob: retiling is a permutation that
 untile_order inverts, and no per-lane ray math depends on tile
-membership — so the fused frame kernel must produce a BIT-IDENTICAL
-image for every shape. The shape binds at import time (module constants
-+ kernel index math), so each setting renders in a fresh subprocess.
+membership — so the intersection kernel's wavefront must produce a
+BIT-IDENTICAL image for every shape. The shape binds at import time
+(module constants), so each setting renders in a fresh subprocess.
 """
 
 import json
@@ -25,20 +25,22 @@ sys.path.insert(0, %(repo)r)
 import numpy as np
 import jax
 jax.config.update("jax_platforms", "cpu")
-from refraction_tpu.config import RenderConfig
-from refraction_tpu.camera import orbit_camera
-from refraction_tpu.io.primitives import make_gradient_envmap, make_icosphere
-from refraction_tpu.scene import build_scene, scene_to_device
-from refraction_tpu.kernels.framekernel import TILE_H, TILE_W, \
-    render_frame_fused
+from refraction.config import RenderConfig
+from refraction.camera import orbit_camera
+from refraction.io.primitives import make_gradient_envmap, make_icosphere
+from refraction.scene import build_scene, scene_to_device
+from refraction.ops.backends import get_backend
+from refraction.render import TILE_H, TILE_W, render_frame
 assert (TILE_H, TILE_W) == tuple(
     int(v) for v in os.environ["RRT_TILE"].split("x")), (TILE_H, TILE_W)
-cfg = RenderConfig(width=192, height=96, backend="pallas", cluster_size=32)
+cfg = RenderConfig(width=192, height=96, cluster_size=32)
 scene, _ = build_scene(make_icosphere(subdiv=2, radius=1.2),
                        make_gradient_envmap(64, 128), cluster_size=32)
 scene = scene_to_device(scene)
+kernel = get_backend("pallas", interpret=True).intersect
 img = np.asarray(
-    render_frame_fused(scene, orbit_camera(0.3, cfg), cfg, interpret=True))
+    render_frame(scene, cfg, frame=orbit_camera(0.3, cfg),
+                 intersect_fn=kernel))
 np.save(sys.argv[1], img)
 """
 
@@ -62,7 +64,7 @@ def test_tile_shape_bit_parity(tmp_path, shape):
 
 
 def test_tile_shape_rejects_bad_spec(monkeypatch):
-    from refraction_tpu.utils.tileshape import tile_shape
+    from refraction.utils.tileshape import tile_shape
 
     # monkeypatch (not a finally-pop) so a user-set RRT_TILE is restored
     # for later tests in the same process.
